@@ -1,6 +1,6 @@
-// srcnn_host: native host-side runtime for the TPU SRCNN framework.
+// srcnn_host: native host-side runtime for the SRCNN framework.
 //
-// The TPU owns the conv stack (JAX/XLA/Pallas); this library owns the
+// The accelerator owns the conv stack (JAX/XLA/Pallas); this library owns the
 // host-side work around it, mirroring the native layer of the reference
 // binary (reference src/srcnn.cpp pipeline stages, src/frawscale.{h,cpp}
 // resize engine, src/tick.cpp timer) with a fresh implementation:

@@ -1,9 +1,10 @@
-"""srcnn_cpp_tpu — a TPU-native super-resolution framework.
+"""srcnn_cpp_tpu — a JAX super-resolution framework.
 
 A from-scratch re-design of the capabilities of the reference C++/OpenMP SRCNN
-binary (shuwang127/SRCNN_Cpp) for TPU hardware: JAX/XLA/Pallas compute path,
-pjit/shard_map parallelism over device meshes, and a small C++ host runtime
-for timing and host-side resampling.
+binary (shuwang127/SRCNN_Cpp) for accelerators: JAX/XLA compute path with a
+fused Pallas conv kernel for NVIDIA GPUs, pjit/shard_map parallelism over
+device meshes, and a small C++ host runtime for timing and host-side
+resampling.
 
 Public surface:
 

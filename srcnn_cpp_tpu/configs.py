@@ -20,18 +20,16 @@ import numpy as np
 from .weights import SRCNNWeights, load_weights
 
 
-def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
-                      kernel: str = "pallas", resize: str = "auto"):
-    """Runner: BGR uint8 [B,H,W,3] -> x2, bit-exact path (the exact
-    resize engine now matches the fast one to ~12%, so the production
-    default is the accuracy-gated configuration).
+def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 4,
+                      kernel: str = "auto", resize: str = "auto"):
+    """Runner: BGR uint8 [B,H,W,3] -> x2 on the bit-exact resize path.
 
     ``batch`` is the per-dispatch chunk; larger inputs (e.g. the 64-image
-    BASELINE config) are processed as chained dispatches of that size —
-    64 frames of 1080p->4K in one dispatch exceed single-chip HBM (the
-    resize's f32 row intermediates alone are ~48 MB/frame), and chunks of
-    32 measure within a few % of the larger batch anyway (batch sweep:
-    1332 vs 1375 MP/s at the bench geometry).
+    BASELINE config) are processed as chained dispatches of that size.
+    The default fits one 80 GB card on every conv path: the XLA conv
+    stack holds about 400 B of live features per output pixel, so 4
+    frames of 1080p->4K (33 MP out) need about 13 GB, while 32 would need
+    over 100 GB.
     """
     from .pipeline import upscale_bgr_batch
 
@@ -50,59 +48,38 @@ def batch_1080p_to_4k(weights: SRCNNWeights | None = None, batch: int = 32,
 
 
 def single_8k(weights: SRCNNWeights | None = None, mesh=None,
-              scale: float = 2.0, kernel: str = "pallas",
+              scale: float = 2.0, kernel: str = "auto",
               resize: str = "auto"):
     """Runner: one huge frame; rows tile over the mesh when given.
 
-    On the mesh path EVERY stage is sharded: the whole pipeline is one
+    On the mesh path every stage is sharded: the whole pipeline is one
     jitted program with row-sharding constraints on the color/resize/merge
     stages (GSPMD inserts the resize's boundary comms) and the explicit
-    halo-exchange tiling for the conv — no unsharded full-plane op remains
-    (round-2 judge finding).  ``kernel`` defaults to the fused Pallas
-    conv like every other production config (per-device-under-shard_map is
-    Mosaic-validated on chip, SCALING.md 2026-08-19); ``kernel="xla"``
-    keeps the split-precision XLA conv.  ``resize="fused"`` runs the
-    pre-pass as one Pallas kernel per device too (explicit ppermute input
-    halos, parallel/tiling.pre_upscale_fused_rows) with the GSPMD engine
-    as the automatic fallback for geometries it declines.
+    halo-exchange tiling for the conv (parallel/tiling.py), which runs
+    ``kernel`` on each device's tile.
     """
-    from .pipeline import resolve_resize
+    from .runtime import resolve_kernel, resolve_resize
 
+    kernel = resolve_kernel(kernel)
     resize = resolve_resize(resize)
     weights = weights if weights is not None else load_weights()
     step = spec = None
     if mesh is not None:
         import jax
-        import jax.numpy as jnp
         from functools import partial
 
-        from jax import lax
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        from .ops.color import bgr2ycrcb_u8_planar, ycrcb2bgr_u8_planar
-        from .ops.resize import resize_bicubic_u8
-        from .parallel import pre_upscale_fused_rows, upscale_y_tiled
-        from .parallel.tiling import merge_ycrcb_to_bgr_fused_rows
+        from .parallel.tiling import (merge_sharded, pre_upscale_sharded,
+                                      upscale_y_tiled)
 
         spec = NamedSharding(mesh, P(None, "row", None))
 
         @partial(jax.jit, static_argnames=("out_hw",))
         def step(planar, w, out_hw):
-            planar = lax.with_sharding_constraint(planar, spec)
-            up = (pre_upscale_fused_rows(planar, out_hw, mesh)
-                  if resize == "fused" else None)
-            if up is None:
-                up = resize_bicubic_u8(bgr2ycrcb_u8_planar(planar), out_hw)
-            up = lax.with_sharding_constraint(up, spec)     # [3, oh, ow] u8
-            y_sr = upscale_y_tiled(up[0], w, mesh, kernel)
-            if resize == "fused":
-                out = merge_ycrcb_to_bgr_fused_rows(
-                    y_sr[None], up[None], mesh)
-                if out is not None:
-                    return lax.with_sharding_constraint(out[0], spec)
-            out = jnp.stack([y_sr, up[1], up[2]], axis=0)
-            return lax.with_sharding_constraint(
-                ycrcb2bgr_u8_planar(out), spec)
+            up = pre_upscale_sharded(planar, out_hw, spec, resize)
+            y_sr = upscale_y_tiled(up[0], w, mesh, kernel)   # [oh, ow]
+            return merge_sharded(y_sr, up, spec)
 
     def run(bgr: np.ndarray):
         if mesh is None:
@@ -130,7 +107,7 @@ def single_8k(weights: SRCNNWeights | None = None, mesh=None,
 
 
 def stream_4k30(weights: SRCNNWeights | None = None, scale: float = 2.0,
-                depth: int = 3, kernel: str = "pallas",
+                depth: int = 3, kernel: str = "auto",
                 resize: str = "auto"):
     """Runner: the pipelined video upscaler (push/drain protocol)."""
     from .stream import StreamUpscaler
@@ -140,16 +117,14 @@ def stream_4k30(weights: SRCNNWeights | None = None, scale: float = 2.0,
 
 
 def stream_4k30_distributed(mesh=None, weights: SRCNNWeights | None = None,
-                            scale: float = 2.0, depth: int = 2,
-                            variant: str = "exact"):
+                            scale: float = 2.0, depth: int = 2):
     """Runner: the multi-host frame stream (BASELINE config 5).
 
     Shards frames over the mesh's ``data`` axis and each frame's rows over
     ``row`` with ppermute halo exchange; every process pushes its local
     slab (parallel.DistributedStream.push_local).  Call
     ``parallel.initialize()`` once per process first on a real multi-host
-    deployment.  ``variant="fused"`` runs each pipeline stage as one
-    Pallas kernel per device.
+    deployment.
     """
     from .parallel.distributed import DistributedStream, frame_mesh
 
@@ -157,5 +132,4 @@ def stream_4k30_distributed(mesh=None, weights: SRCNNWeights | None = None,
         import jax
 
         mesh = frame_mesh(data=max(1, jax.process_count()))
-    return DistributedStream(scale, mesh, weights=weights, depth=depth,
-                             variant=variant)
+    return DistributedStream(scale, mesh, weights=weights, depth=depth)

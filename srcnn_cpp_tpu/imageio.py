@@ -2,12 +2,15 @@
 
 The reference does disk I/O through OpenCV (reference src/srcnn.cpp:462
 ``imread``, :670 ``imwrite``).  We prefer the same codecs via the cv2 binding
-(bit-identical decode for JPEG/PNG), falling back to PIL when cv2 is absent.
+(bit-identical decode for JPEG/PNG), falling back to PIL when cv2 is absent,
+and to the standard-library PNG codec below when neither is installed.
 All in-memory images are BGR uint8 HxWx3, matching the reference convention.
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -92,7 +95,108 @@ def decode_provenance() -> dict:
 
         return {"decoder": "PIL", "version": PIL.__version__}
     except Exception:  # pragma: no cover
-        return {"decoder": "none", "version": ""}
+        return {"decoder": "png-zlib", "version": ""}
+
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _png_unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters of ``raw [H, 1 + stride]`` (8-bit)."""
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, f = int(raw[y, 0]), raw[y, 1:]
+        if ftype == 0:
+            cur = f.copy()
+        elif ftype == 1:      # Sub: running sum along each channel
+            cur = (np.cumsum(f.reshape(-1, bpp).astype(np.int64), axis=0)
+                   % 256).astype(np.uint8).reshape(-1)
+        elif ftype == 2:      # Up
+            cur = f + prev
+        elif ftype in (3, 4):  # Average, Paeth: sequential along the row
+            fb, pb = f.tolist(), prev.tolist()
+            cb = [0] * stride
+            for x in range(stride):
+                a = cb[x - bpp] if x >= bpp else 0
+                b = pb[x]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = pb[x - bpp] if x >= bpp else 0
+                    pa, pbd, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pbd and pa <= pc else (
+                        b if pbd <= pc else c)
+                cb[x] = (fb[x] + pred) & 0xFF
+            cur = np.asarray(cb, np.uint8)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def png_decode(data: bytes) -> np.ndarray:
+    """8-bit non-interlaced PNG bytes -> uint8 ``[H, W, C]`` (file order:
+    gray, gray+alpha, RGB or RGBA; palettes are expanded to RGB)."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos, idat, plte, hdr = 8, [], None, None
+    while pos + 8 <= len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or interlace or ctype not in _PNG_CHANNELS:
+        raise ValueError(f"unsupported PNG (depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace})")
+    ch = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    img = _png_unfilter(raw.reshape(h, 1 + w * ch), ch).reshape(h, w, ch)
+    if ctype == 3:
+        img = plte[img[..., 0]]
+    return img
+
+
+def png_encode(img: np.ndarray) -> bytes:
+    """uint8 ``[H, W]`` (gray) or ``[H, W, 3|4]`` (RGB/RGBA) -> PNG bytes."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    ctype = {1: 0, 3: 2, 4: 6}[ch]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * ch)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (_PNG_SIG
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def _png_read_bgr(path: str) -> np.ndarray | None:
+    try:
+        img = png_decode(Path(path).read_bytes())
+    except (OSError, ValueError, zlib.error):
+        return None
+    if img.shape[2] in (1, 2):          # gray (+alpha) -> 3 gray channels
+        return np.repeat(img[..., :1], 3, axis=2)
+    return np.ascontiguousarray(img[..., 2::-1])  # RGB(A) -> BGR
 
 
 def imread_bgr(path: str | Path) -> np.ndarray | None:
@@ -106,6 +210,8 @@ def imread_bgr(path: str | Path) -> np.ndarray | None:
 
         rgb = np.asarray(Image.open(path).convert("RGB"), dtype=np.uint8)
         return rgb[..., ::-1].copy()
+    except ImportError:
+        return _png_read_bgr(path)
     except Exception:
         return None
 
@@ -121,5 +227,13 @@ def imwrite_bgr(path: str | Path, bgr: np.ndarray) -> bool:
 
         Image.fromarray(bgr[..., ::-1]).save(path)
         return True
+    except ImportError:
+        if Path(path).suffix.lower() != ".png":
+            return False
+        try:
+            Path(path).write_bytes(png_encode(bgr[..., ::-1]))
+            return True
+        except OSError:
+            return False
     except Exception:
         return False

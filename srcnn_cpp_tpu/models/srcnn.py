@@ -64,9 +64,10 @@ class SRCNN:
     def apply(self, weights: SRCNNWeights, y, precision=None):
         """Forward on pre-upscaled Y planes (0-255 domain) -> float32.
 
-        Shapes per :func:`srcnn_cpp_tpu.ops.srcnn.srcnn_y_f32`.  Only the
-        canonical config may use the fused Pallas kernel; the generic path
-        runs lax convs with the same replicate/feature-clamp semantics.
+        Shapes per :func:`srcnn_cpp_tpu.ops.srcnn.srcnn_y_f32`.  The
+        generic path runs lax convs with the same replicate/feature-clamp
+        semantics.  Every conv states its precision (HIGHEST unless the
+        caller passes one), so no backend rounds it to TF32.
         """
         from ..ops.srcnn import srcnn_y_f32
         from jax import lax

@@ -1,12 +1,13 @@
 """ctypes bindings for the native host runtime (native/srcnn_host.cpp).
 
-The TPU owns the conv stack; this module exposes the C++ host-side layer —
+The accelerator owns the conv stack; this module exposes the C++ host-side layer —
 bit-exact uint8 bicubic resize, the generic separable resampler, fixed-point
 colorspace conversion, and a monotonic tick timer — mirroring the native
 layer of the reference (resize: srcnn.cpp:577-582 + frawscale.cpp; color:
 srcnn.cpp:509,657; timer: tick.cpp).
 
-The library is built on demand (``make -C native``); all entry points have
+The library is built on demand from the committed ``native/`` sources into
+``native/build/`` (``make -C native``); all entry points have
 pure-Python/NumPy fallbacks via the oracle modules, so the framework works
 without a compiler — the native path is a host-throughput optimization.
 """

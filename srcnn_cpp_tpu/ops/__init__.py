@@ -1,6 +1,6 @@
-"""TPU-native image ops: colorspace, resize, SRCNN conv stack, quantization.
+"""Image ops: colorspace, resize, SRCNN conv stack, quantization.
 
-Each op re-implements (TPU-first, not a translation) a behavior of the
+Each op re-implements (as JAX code, not a translation) a behavior of the
 reference binary (reference src/srcnn.cpp) and is validated bit-for-bit or to
 PSNR tolerance against it.  See individual modules for file:line citations.
 """
@@ -10,7 +10,7 @@ from .color import (bgr2ycrcb_u8, bgr2ycrcb_u8_planar, ycrcb2bgr_u8,
 from .resize import (FILTERS, resize_bicubic_u8, resize_bicubic_u8_fast,
                      resize_separable)
 from .quantize import quantize_trunc_u8
-from .srcnn import srcnn_y, srcnn_y_f32, srcnn_y_split
+from .srcnn import srcnn_y, srcnn_y_f32
 
 __all__ = [
     "bgr2ycrcb_u8",
@@ -24,5 +24,4 @@ __all__ = [
     "quantize_trunc_u8",
     "srcnn_y",
     "srcnn_y_f32",
-    "srcnn_y_split",
 ]

@@ -38,8 +38,7 @@ def _descale(x, n: int = _SHIFT):
 def bgr2ycrcb_u8(bgr):
     """uint8 BGR [..., 3] -> uint8 YCrCb [..., 3], OpenCV-bit-exact.
 
-    NOTE: channels-last layout is convenient but maps badly onto TPU tiles
-    (3-wide lane dim); the jitted pipeline uses the planar variants below.
+    The jitted pipeline uses the planar variants below.
     """
     x = bgr.astype(jnp.int32)
     b, g, r = x[..., 0], x[..., 1], x[..., 2]
@@ -69,9 +68,7 @@ def _descale_f32(x):
     products/sums are exact, the power-of-two scaling is an exponent
     shift, and floor of a negative value matches the arithmetic right
     shift.  Verified exhaustively over the full 2^24 input cube against
-    the integer form.  f32 is used because the TPU VPU multiplies f32 at
-    full rate while int32 multiplies are emulated (measured 18 ms -> ~2 ms
-    for the two conversions at batch-32 1080p).
+    the integer form.
     """
     return jnp.floor((x + jnp.float32(_HALF)) * jnp.float32(2.0 ** -_SHIFT))
 

@@ -16,22 +16,20 @@ def quantize_trunc_u8(x):
     return jnp.clip(jnp.trunc(x), 0, 255).astype(jnp.uint8)
 
 
-def split_hi_lo(x, bitcast=None):
+def split_hi_lo(x):
     """f32 -> (hi, lo) bf16 pair with hi+lo ~= x to ~2^-16 relative.
 
     THE one numerically-subtle trick of the split-precision paths, shared
-    by the Pallas kernel, weight packing, and the XLA conv path.  The
+    by the fused kernel, weight packing, and the XLA conv path.  The
     split is computed by integer masking (top 16 bits = exactly the
     bf16-representable truncation), NOT by ``bf16(x)`` roundtrips: XLA
     runs with --xla_allow_excess_precision, which folds
     ``x - f32(bf16(x))`` to zero and silently destroys the compensation
-    term.  ``bitcast`` defaults to ``lax.bitcast_convert_type``; inside a
-    Pallas kernel pass ``pltpu.bitcast`` instead.
+    term.
     """
     import jax.lax as lax
 
-    bc = bitcast if bitcast is not None else \
-        (lambda v, t: lax.bitcast_convert_type(v, t))
-    bits = bc(x.astype(jnp.float32), jnp.uint32)
-    hi32 = bc(bits & jnp.uint32(0xFFFF0000), jnp.float32)
+    bits = lax.bitcast_convert_type(x.astype(jnp.float32), jnp.uint32)
+    hi32 = lax.bitcast_convert_type(bits & jnp.uint32(0xFFFF0000),
+                                    jnp.float32)
     return hi32.astype(jnp.bfloat16), (x - hi32).astype(jnp.bfloat16)

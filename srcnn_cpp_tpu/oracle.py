@@ -2,7 +2,7 @@
 
 This module is the **test oracle**: a slow, simple, host-side re-statement of
 every numerical behavior of the reference pipeline (reference src/srcnn.cpp),
-used to validate the TPU compute path.  It reproduces, per SURVEY.md §2:
+used to validate the device compute path.  It reproduces, per SURVEY.md §2:
 
 * Y-only inference on OpenCV YCrCb (srcnn.cpp:509,540,609).
 * Unnormalized uint8 0-255 conv1 input (srcnn.cpp:297).

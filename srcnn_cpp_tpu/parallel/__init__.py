@@ -1,11 +1,11 @@
-"""Parallelism over TPU device meshes.
+"""Parallelism over device meshes.
 
 The reference's only parallelism is OpenMP row-loops in one process
-(SURVEY.md §2 C16-C18).  The TPU-native counterparts here:
+(SURVEY.md §2 C16-C18).  The counterparts here:
 
 * :mod:`.mesh` — device mesh construction (data x spatial axes).
 * :mod:`.tiling` — spatial row-tile sharding of one image across chips with
-  bit-exact halo exchange over ICI (``lax.ppermute`` inside ``shard_map``),
+  bit-exact halo exchange (``lax.ppermute`` inside ``shard_map``),
   the image-domain analogue of sequence/context parallelism.
 * batch data-parallelism falls out of the same mesh (batch axis sharded over
   the ``data`` axis).
@@ -15,8 +15,7 @@ The reference's only parallelism is OpenMP row-loops in one process
 """
 
 from .mesh import make_mesh
-from .tiling import (pre_upscale_fused_rows, srcnn_y_tiled,
-                     upscale_y_tiled)
+from .tiling import srcnn_y_tiled, upscale_y_tiled
 
 
 def __getattr__(name):
@@ -36,6 +35,6 @@ def __getattr__(name):
 
 
 __all__ = ["make_mesh", "srcnn_y_tiled", "upscale_y_tiled",
-           "pre_upscale_fused_rows", "srcnn_y_gspmd",
+           "srcnn_y_gspmd",
            "initialize", "scaling_efficiency", "DistributedStream",
            "frame_mesh"]

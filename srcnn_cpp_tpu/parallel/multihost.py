@@ -1,10 +1,10 @@
 """Multi-host slice support + scaling-efficiency harness.
 
-The reference is strictly single-process (SURVEY.md §2 C18); the TPU-native
-counterpart spans hosts with ``jax.distributed`` + a GSPMD mesh whose
-``row`` (spatial) axis rides ICI within a slice and whose ``data`` axis can
-cross DCN between slices (frames are independent, so the only cross-host
-traffic is halo rows on the row axis — keep ``row`` intra-slice).
+The reference is strictly single-process (SURVEY.md §2 C18); here the
+pipeline spans hosts with ``jax.distributed`` + a GSPMD mesh whose ``row``
+(spatial) axis stays within a host and whose ``data`` axis can cross hosts
+(frames are independent, so the only cross-device traffic is halo rows on
+the row axis — keep ``row`` within a host).
 
 Real multi-host runs call :func:`initialize` once per process before any
 jax API; the scaling harness also runs on one host over any device count

@@ -10,15 +10,11 @@ Everything between decode and encode happens in a single XLA program with
 static shapes; image decode/encode stay host-side (as in the reference,
 srcnn.cpp:462,670 via OpenCV imread/imwrite).
 
-Device arrays are PLANAR ``[..., 3, H, W]``: channels-last u8 tensors tile
-as (W, 3) with a 3-wide lane axis — a ~40x padded-layout blowup that made
-even elementwise color math dominate the profile.  Host wrappers transpose
+Device arrays are PLANAR ``[..., 3, H, W]``; host wrappers transpose
 HWC<->planar (a memcpy-speed numpy op) around the jit boundary.
 
-``resize`` selects the pre-upscale engine: ``"exact"`` (gather-based,
-bit-exact with OpenCV 4.6) or ``"fast"`` (banded-matmul MXU form, ~70 dB
-agreement with exact; see ops/resize.py).  ``kernel`` selects the conv
-backend: ``"pallas"`` (fused single-pass kernel) or ``"xla"``.
+``kernel`` and ``resize`` name the conv path and the pre-upscale engine;
+``"auto"`` resolves per backend in :mod:`.runtime`.
 """
 
 from __future__ import annotations
@@ -32,72 +28,41 @@ import numpy as np
 from .ops.color import bgr2ycrcb_u8_planar, ycrcb2bgr_u8_planar
 from .ops.resize import resize_bicubic_u8, resize_bicubic_u8_fast, scaled_size
 from .ops.srcnn import srcnn_y
+from .runtime import resolve_kernel, resolve_resize
 from .weights import SRCNNWeights, load_weights
 
 
-def resolve_resize(mode: str) -> str:
-    """Resolve the ``"auto"`` resize mode to a concrete engine.
+def _srcnn(y_u8, weights, kernel: str):
+    """The conv stack on uint8 Y planes by a concrete kernel name."""
+    if kernel == "pallas":
+        from .ops.pallas_srcnn import srcnn_y_fused
 
-    ``auto`` -> ``fused`` on the TPU backend (the single-pass Pallas
-    pre/post kernels are gate-verified BIT-identical to the exact engines
-    on chip and measured faster there, KERNEL_NOTES round 3e) and
-    ``exact`` everywhere else (on CPU the fused kernels only run in slow
-    interpret mode and XLA:CPU's FMA contraction voids bit-identity).
-    """
-    if mode == "auto":
-        return "fused" if jax.default_backend() == "tpu" else "exact"
-    return mode
+        return srcnn_y_fused(y_u8, weights)
+    return srcnn_y(y_u8, weights)
 
 
 @partial(jax.jit, static_argnames=("out_hw", "backend_kernel", "resize_mode"))
 def _upscale_planar_jit(bgr_p, weights: SRCNNWeights, out_hw: tuple[int, int],
-                        backend_kernel: str = "pallas",
-                        resize_mode: str = "exact"):
-    """Planar BGR u8 ``[B, 3, H, W]`` -> planar BGR u8 ``[B, 3, oh, ow]``."""
-    up = None
-    if resize_mode == "fused":
-        # single-pass Pallas color+bicubic pre-pass (bit-identical); None
-        # when the geometry has no integer-upscale phase plan -> fall back
-        from .ops.pallas_resize import pre_upscale_fused
+                        backend_kernel: str, resize_mode: str = "exact"):
+    """Planar BGR u8 ``[B, 3, H, W]`` -> planar BGR u8 ``[B, 3, oh, ow]``.
 
-        up = pre_upscale_fused(bgr_p, out_hw)
-    if up is None:
-        ycc = bgr2ycrcb_u8_planar(bgr_p)
-        rs = (resize_bicubic_u8_fast if resize_mode == "fast"
-              else resize_bicubic_u8)
-        up = rs(ycc, out_hw)                              # [B, 3, oh, ow]
-    if backend_kernel == "pallas":
-        # NOT used here: srcnn_merge_fused (conv+merge in one kernel) —
-        # measured 5 ms SLOWER than the separate merge kernel at the
-        # bench geometry (bit-identical; KERNEL_NOTES 4e negative)
-        from .ops.pallas_srcnn import srcnn_y_fused
-
-        y_sr = srcnn_y_fused(up[:, 0], weights)
-    elif backend_kernel == "xla_split":
-        from .ops.srcnn import srcnn_y_split
-
-        y_sr = srcnn_y_split(up[:, 0], weights)
-    else:
-        y_sr = srcnn_y(up[:, 0], weights)                 # [B, oh, ow]
-    if resize_mode == "fused":
-        # single-pass Pallas merge + inverse color (bit-identical on every
-        # backend); None only for planes too small to be worth a kernel
-        from .ops.pallas_merge import merge_ycrcb_to_bgr_fused
-
-        out = merge_ycrcb_to_bgr_fused(y_sr, up)
-        if out is not None:
-            return out
+    ``backend_kernel`` and ``resize_mode`` are concrete names (see
+    :func:`.runtime.resolve_kernel`).
+    """
+    ycc = bgr2ycrcb_u8_planar(bgr_p)
+    rs = resize_bicubic_u8_fast if resize_mode == "fast" else resize_bicubic_u8
+    up = rs(ycc, out_hw)                                  # [B, 3, oh, ow]
+    y_sr = _srcnn(up[:, 0], weights, backend_kernel)      # [B, oh, ow]
     merged = jnp.stack([y_sr, up[:, 1], up[:, 2]], axis=-3)
     return ycrcb2bgr_u8_planar(merged)
 
 
 def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
-                      kernel: str = "pallas", resize: str = "exact"):
+                      kernel: str = "auto", resize: str = "auto"):
     """Super-resolve a batch ``[B, H, W, 3]`` of BGR uint8 frames.
 
     The batch dimension amortizes dispatch overhead and shards over the
-    ``data`` mesh axis under pjit (the TPU counterpart of running the
-    reference binary on many images).
+    ``data`` mesh axis under pjit.
     """
     weights = weights if weights is not None else load_weights()
     h, w = bgr_u8.shape[1:3]
@@ -107,13 +72,13 @@ def upscale_bgr_batch(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
     else:  # host transpose is memcpy-speed; avoids the padded HWC layout
         planar = jnp.asarray(
             np.ascontiguousarray(np.moveaxis(np.asarray(bgr_u8), -1, 1)))
-    out = _upscale_planar_jit(planar, weights, (oh, ow), kernel,
-                              resolve_resize(resize))
+    out = _upscale_planar_jit(planar, weights, (oh, ow),
+                              resolve_kernel(kernel), resolve_resize(resize))
     return jnp.moveaxis(out, 1, -1)
 
 
 def upscale_bgr(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
-                kernel: str = "pallas", resize: str = "exact"):
+                kernel: str = "auto", resize: str = "auto"):
     """Super-resolve one BGR uint8 image ``[H, W, 3]`` by ``scale``.
 
     Output dims are ``floor(float32(dim) * float32(scale))``, matching the
@@ -126,17 +91,12 @@ def upscale_bgr(bgr_u8, scale: float, weights: SRCNNWeights | None = None,
 
 @partial(jax.jit, static_argnames=("out_hw", "backend_kernel"))
 def _upscale_plane_jit(y_u8, weights: SRCNNWeights, out_hw: tuple[int, int],
-                       backend_kernel: str = "pallas"):
-    up = resize_bicubic_u8(y_u8, out_hw)
-    if backend_kernel == "pallas":
-        from .ops.pallas_srcnn import srcnn_y_fused
-
-        return srcnn_y_fused(up, weights)
-    return srcnn_y(up, weights)
+                       backend_kernel: str):
+    return _srcnn(resize_bicubic_u8(y_u8, out_hw), weights, backend_kernel)
 
 
 def process_srcnn(buf, w: int, h: int, d: int, scale: float,
-                  weights: SRCNNWeights | None = None, kernel: str = "pallas"):
+                  weights: SRCNNWeights | None = None, kernel: str = "auto"):
     """Raw-buffer library API (the libsrcnn ``ProcessSRCNN`` shape).
 
     Mirrors the call contract documented by the reference's sibling test
@@ -162,7 +122,7 @@ def process_srcnn(buf, w: int, h: int, d: int, scale: float,
     ow, oh = scaled_size(w, h, scale)
     if d == 1:
         out = np.asarray(_upscale_plane_jit(jnp.asarray(img), weights,
-                                            (oh, ow), kernel))
+                                            (oh, ow), resolve_kernel(kernel)))
     elif d in (3, 4):
         bgr = img[..., 2::-1]
         sr = np.asarray(upscale_bgr(bgr, scale, weights, kernel))[..., ::-1]

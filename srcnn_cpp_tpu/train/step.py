@@ -1,9 +1,9 @@
-"""SRCNN training on TPU meshes (a capability the reference lacks).
+"""SRCNN training on device meshes (a capability the reference lacks).
 
 The reference ships a frozen checkpoint (reference src/convdata.h) and no
 trainer; the original SRCNN recipe (Dong et al. 2014, which that checkpoint
 came from) is MSE regression from bicubic-upscaled LR patches to HR patches.
-This module provides that recipe TPU-natively:
+This module provides that recipe in JAX:
 
 * :func:`mse_loss` — pixel MSE in the 0-255 weight domain;
 * :func:`make_train_step` — single-device/jit step with any optax optimizer;

@@ -1,12 +1,12 @@
 """Numerical-safety debugging aids (the sanitizer-shaped aux subsystem).
 
 The reference ships no sanitizers or checkers (SURVEY.md §5.2-5.3); its
-failure handling is printf + exit codes.  The TPU-native equivalents here:
+failure handling is printf + exit codes.  The equivalents here:
 
 * :func:`nan_guard` — context manager enabling jax debug_nans/debug_infs,
   turning silent NaN propagation into immediate errors at the op that
   produced them (the practical race/corruption detector for functional
-  TPU code, where data races per se cannot occur);
+  JAX code, where data races per se cannot occur);
 * :func:`check_finite` — explicit pytree assertion for checkpoints and
   gradients (catches blown-up training before it poisons a run);
 * :data:`EXIT_CODES` — the reference binary's error-code contract

@@ -1,7 +1,7 @@
 """Pretrained SRCNN 9-5-5 weights.
 
 The reference framework ships its checkpoint as compile-time C arrays
-(`/root/reference/src/convdata.h`, 1178 lines).  Here the checkpoint is a
+(the reference's ``src/convdata.h``, 1178 lines).  Here the checkpoint is a
 normal on-disk artifact: ``srcnn955.npz``, produced once by
 :mod:`srcnn_cpp_tpu.weights.parse_convdata` from the C header, then loaded at
 runtime like any other model checkpoint.

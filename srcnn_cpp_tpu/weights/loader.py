@@ -2,7 +2,7 @@
 
 The only "checkpoint" capability the reference has is its compiled-in weight
 header (reference src/convdata.h, included at srcnn.cpp:31); here that becomes
-a real loader with dtype control so the TPU compute path can run the matmul
+a real loader with dtype control so the device compute path can run the matmul
 weights in bfloat16 while keeping fp32 masters.
 """
 

@@ -19,13 +19,16 @@ Layout facts recovered from the reference (srcnn.cpp usage sites):
 
 from __future__ import annotations
 
+import os
 import re
 import sys
 from pathlib import Path
 
 import numpy as np
 
-_DEFAULT_HEADER = Path("/root/reference/src/convdata.h")
+#: the reference's header: ``$SRCNN_CONVDATA_H``, else src/convdata.h under
+#: the working directory (run from a checkout of the reference)
+_DEFAULT_HEADER = Path(os.environ.get("SRCNN_CONVDATA_H", "src/convdata.h"))
 _DEFAULT_OUT = Path(__file__).with_name("srcnn955.npz")
 
 # A C float literal: optional sign, digits, optional fraction/exponent, optional f suffix.

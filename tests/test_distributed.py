@@ -233,25 +233,24 @@ def test_local_bounds_cover_sharding(weights):
 
 
 def test_single_process_stream_fused_variant(weights):
-    """variant="fused": every stage one Pallas kernel per device; output
-    matches the monolithic fused pipeline (same kernels, same order —
-    bit-exact modulo the CPU FMA boundary flips of the pre-pass)."""
+    """x1.5 through the stream: the GSPMD-sharded resize at a non-integer
+    scale (parity phase plans) plus the row-tiled conv; output matches the
+    monolithic pipeline bit for bit."""
     from srcnn_cpp_tpu.parallel.distributed import frame_mesh, run_synthetic
 
     mesh = frame_mesh(data=2)
-    r = run_synthetic(2, (48, 64), 2.0, mesh, weights=weights, depth=1,
-                      check=True, variant="fused")
+    r = run_synthetic(2, (48, 64), 1.5, mesh, weights=weights, depth=1,
+                      check=True, kernel="xla")
     assert r["frames"] == 4
-    # a pre-pass boundary flip amplifies through color/conv: allow 2 LSB
-    assert r["max_abs_diff"] <= 2, r
+    assert r["bitexact"] is True and r["max_abs_diff"] == 0, r
 
 
 def test_two_process_stream_fused_variant():
-    """2 OS processes, fused variant: sharded Pallas pre/conv/post with
-    halos crossing the process boundary; each process checks its block
-    against the monolithic fused pipeline it computes itself."""
-    rows = _run_all(2, ["--frames=2", "--size=64x48", "--scale=2",
-                        "--variant=fused", "--check"])
+    """2 OS processes, x1.5 with rows spanning both: the GSPMD resize's
+    boundary comms and the conv halos cross the process boundary; each
+    process checks its block against the monolithic pipeline."""
+    rows = _run_all(2, ["--frames=2", "--size=64x48", "--scale=1.5",
+                        "--kernel=xla", "--check"])
     for r in rows:
         assert r["processes"] == 2
-        assert r["max_abs_diff"] <= 2, r
+        assert r["bitexact"] is True and r["max_abs_diff"] == 0, r

@@ -1,23 +1,41 @@
-"""Fused color+resize pre-pass kernel: parity vs the XLA engines.
+"""Colour + bicubic pre-pass: the XLA engines against the NumPy oracle.
 
-Runs in Pallas interpret mode on CPU.  The numerics contract is
-bit-identity with ``resize_bicubic_u8(bgr2ycrcb_u8_planar(x), out_hw)``
-ON TPU; on the CPU backend XLA may FMA-contract the vertical pass's
-mul+add *program-dependently* (see ops/pallas_resize.py docstring), so a
-handful of exact-.5-boundary pixels (~1e-5) may flip by 1 LSB between the
-two programs here.  CPU tests therefore allow <=1 LSB on a tiny fraction;
-the strict on-chip gate lives in tests/test_tpu.py.
+The pre-pass runs as XLA ops on every backend (the GPU fuses its
+elementwise and strided-slice chains).  Its numerics contract is
+OpenCV 4.6's: ``oracle.bgr2ycrcb_u8_ref`` followed by the per-channel
+``resize_bicubic_u8_np`` with separate mul and add roundings.  XLA may
+contract the vertical pass's mul+add into an FMA, so a handful of
+exact-.5-boundary pixels (~1e-5) may flip by 1 LSB; the gate allows <=1
+LSB on a tiny fraction.  The geometries are those of every resize plan
+family (strict phase plans, S=2 and S=4 parity plans, the generalized
+x3 plan, and the gather fallback).
 """
 
 import numpy as np
 import pytest
 
 
-def _ref(bgr_p, out_hw):
+def _engine(bgr_p, out_hw):
     from srcnn_cpp_tpu.ops.color import bgr2ycrcb_u8_planar
     from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8
 
     return np.asarray(resize_bicubic_u8(bgr2ycrcb_u8_planar(bgr_p), out_hw))
+
+
+def _ref(bgr_p, out_hw):
+    """NumPy oracle on planar BGR ``[..., 3, H, W]``."""
+    from srcnn_cpp_tpu.oracle import bgr2ycrcb_u8_ref
+    from srcnn_cpp_tpu.ops.resize_tables import resize_bicubic_u8_np
+
+    x = np.asarray(bgr_p)
+    lead = x.shape[:-3]
+    x = x.reshape((-1,) + x.shape[-3:])
+    out = []
+    for frame in x:
+        ycc = bgr2ycrcb_u8_ref(np.moveaxis(frame, 0, -1))
+        out.append(np.stack([resize_bicubic_u8_np(ycc[..., c], out_hw)
+                             for c in range(3)]))
+    return np.stack(out).reshape(lead + (3,) + tuple(out_hw))
 
 
 def _assert_parity(got, ref):
@@ -37,73 +55,58 @@ def _assert_parity(got, ref):
 ])
 def test_fused_pre_parity_integer_scales(ih, iw, s):
     from srcnn_cpp_tpu.ops.resize import scaled_size
-    from srcnn_cpp_tpu.ops.pallas_resize import pre_upscale_fused
 
     rng = np.random.default_rng(int(ih + iw + s))
     x = rng.integers(0, 256, (2, 3, ih, iw), dtype=np.uint8)
     ow, oh = scaled_size(iw, ih, s)
     out_hw = (oh, ow)
-    got = pre_upscale_fused(x, out_hw)
-    assert got is not None, (ih, iw, s)
-    _assert_parity(got, _ref(x, out_hw))
+    _assert_parity(_engine(x, out_hw), _ref(x, out_hw))
 
 
 def test_fused_pre_bench_geometry():
     # the production x2 shape family (scaled down in H for test speed):
-    # full-width 1080p columns exercise the real tiling/tile-overshoot
-    from srcnn_cpp_tpu.ops.pallas_resize import pre_upscale_fused
-
+    # full-width 1080p columns exercise the dense band matmul at width
     rng = np.random.default_rng(0)
     x = rng.integers(0, 256, (1, 3, 48, 1920), dtype=np.uint8)
-    got = pre_upscale_fused(x, (96, 3840))
-    assert got is not None
-    _assert_parity(got, _ref(x, (96, 3840)))
+    _assert_parity(_engine(x, (96, 3840)), _ref(x, (96, 3840)))
 
 
 def test_fused_pre_single_frame_squeeze():
-    from srcnn_cpp_tpu.ops.pallas_resize import pre_upscale_fused
-
     rng = np.random.default_rng(3)
     x = rng.integers(0, 256, (3, 40, 144), dtype=np.uint8)
-    got = pre_upscale_fused(x, (80, 288))
-    assert got is not None and got.shape == (3, 80, 288)
+    got = _engine(x, (80, 288))
+    assert got.shape == (3, 80, 288)
     _assert_parity(got, _ref(x[None], (80, 288))[0])
 
 
 def test_fused_pre_declines_nonphase_geometries():
-    from srcnn_cpp_tpu.ops.pallas_resize import pre_upscale_fused
-
-    x = np.zeros((1, 3, 64, 128), dtype=np.uint8)
-    # x1.2: the phase plans have source step 5 — beyond the S<=4 the
-    # parity-deinterleaved kernel supports (x1.25/x0.75's S=4 and the
-    # 3:1/4:1 downscales are now covered, tested above)
-    assert pre_upscale_fused(x, (76, 153)) is None
-    # non-periodic ratio (50/64): no period P<=8 exists
-    assert pre_upscale_fused(x, (50, 256)) is None
-    # tiny planes decline too
-    assert pre_upscale_fused(np.zeros((1, 3, 2, 16), np.uint8),
-                             (4, 32)) is None
+    # geometries without a bitwise phase plan take the gather fallback:
+    # x1.2 (source step 5), a non-periodic ratio (50/64) and tiny planes
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 256, (1, 3, 64, 128), dtype=np.uint8)
+    for out_hw in [(76, 153), (50, 256)]:
+        _assert_parity(_engine(x, out_hw), _ref(x, out_hw))
+    tiny = rng.integers(0, 256, (1, 3, 2, 16), dtype=np.uint8)
+    _assert_parity(_engine(tiny, (4, 32)), _ref(tiny, (4, 32)))
 
 
 def test_pipeline_resize_fused_matches_exact(weights):
+    # the whole pipeline against the NumPy oracle of the reference binary:
+    # pre-pass boundary flips propagate through the conv and the inverse
+    # colour transform, hence <=2 LSB on a tiny fraction
+    from srcnn_cpp_tpu.oracle import pipeline_ref
     from srcnn_cpp_tpu.pipeline import _upscale_planar_jit
 
     rng = np.random.default_rng(9)
     x = rng.integers(0, 256, (2, 3, 32, 144), dtype=np.uint8)
-    a = np.asarray(_upscale_planar_jit(x, weights, (64, 288), "xla",
-                                       "exact"))
-    b = np.asarray(_upscale_planar_jit(x, weights, (64, 288), "xla",
-                                       "fused"))
-    # pre-pass boundary flips propagate through the conv, so compare with
-    # the same tolerance shape as the pre-pass parity
-    d = np.abs(a.astype(int) - b.astype(int))
-    assert d.max() <= 2 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
-    # non-integer scale falls back inside the jit: identical by definition
-    a = np.asarray(_upscale_planar_jit(x, weights, (48, 216), "xla",
-                                       "exact"))
-    b = np.asarray(_upscale_planar_jit(x, weights, (48, 216), "xla",
-                                       "fused"))
-    assert np.array_equal(a, b)
+    for scale, out_hw in [(2.0, (64, 288)), (1.5, (48, 216))]:
+        a = np.asarray(_upscale_planar_jit(x, weights, out_hw, "xla",
+                                           "exact"))
+        for i in range(2):
+            b = pipeline_ref(np.moveaxis(x[i], 0, -1), scale, weights)
+            d = np.abs(np.moveaxis(a[i], 0, -1).astype(int) - b.astype(int))
+            assert d.max() <= 2 and (d > 0).mean() < 1e-3, (
+                scale, d.max(), (d > 0).mean())
 
 
 @pytest.mark.parametrize("oh,ih,ow,iw,which", [
@@ -112,24 +115,17 @@ def test_pipeline_resize_fused_matches_exact(weights):
 ])
 def test_fused_pre_generalized_plan(oh, ih, ow, iw, which):
     # Non-power-of-2 integer upscales past output 1536: OpenCV's float32
-    # fractional offsets stop repeating bitwise, the strict plan declines,
-    # and the GENERALIZED plan (periodic indices + per-output coefficient
-    # planes) takes over — found via the round-4 x3 bench, where 540p x3
-    # silently fell back to the XLA engines.
-    from srcnn_cpp_tpu.ops.pallas_resize import _pre_plans, \
-        _pre_statics, pre_upscale_fused
+    # fractional offsets stop repeating bitwise, so the strict phase plan
+    # declines on that axis and the engine takes its gather form there
+    from srcnn_cpp_tpu.ops.resize import _hphase_plan, _vphase_plan
 
-    assert _pre_statics(oh, ih, ow, iw) is None   # strict really declines
-    st, vcf, hcf = _pre_plans(oh, ih, ow, iw)
-    assert st is not None
-    assert (st[5] is None) == (which == "v") == (vcf is not None)
-    assert (st[7] is None) == (which == "h") == (hcf is not None)
-
+    if which == "v":
+        assert _vphase_plan(oh, ih) is None
+    else:
+        assert _hphase_plan(ow, iw) is None
     rng = np.random.default_rng(oh + ow)
     x = rng.integers(0, 256, (1, 3, ih, iw), dtype=np.uint8)
-    got = pre_upscale_fused(x, (oh, ow))
-    assert got is not None
-    _assert_parity(got, _ref(x, (oh, ow)))
+    _assert_parity(_engine(x, (oh, ow)), _ref(x, (oh, ow)))
 
 
 def test_fused_pre_fuzz_random_geometries():
@@ -138,7 +134,6 @@ def test_fused_pre_fuzz_random_geometries():
     # widths/heights exercise ragged tile overshoot, phase interleaves
     # and the padding arithmetic
     from srcnn_cpp_tpu.ops.resize import scaled_size
-    from srcnn_cpp_tpu.ops.pallas_resize import pre_upscale_fused
 
     rng = np.random.default_rng(42)
     tried = 0
@@ -152,9 +147,6 @@ def test_fused_pre_fuzz_random_geometries():
         if oh < 8 or ow < 128:
             continue
         x = rng.integers(0, 256, (1, 3, ih, iw), dtype=np.uint8)
-        got = pre_upscale_fused(x, (oh, ow))
-        if got is None:      # geometry without a step<=4 phase plan
-            continue
         tried += 1
-        _assert_parity(got, _ref(x, (oh, ow)))
+        _assert_parity(_engine(x, (oh, ow)), _ref(x, (oh, ow)))
     assert tried >= 12, f"fuzz covered only {tried} geometries"

@@ -1,9 +1,8 @@
 """End-to-end pipeline against the reference binary's own outputs.
 
 ``tests/golden/butterfly_x{0.75,1.25,1.5,2,3}_ref.png`` are the literal
-outputs of the reference binary (built from /root/reference with OpenCV
-4.6) on butterfly.png (the 0.75/1.25 pair minted round 4 for the S=4
-fused-plan scales).  The accuracy gate from BASELINE.md is PSNR within 0.05 dB of
+outputs of the reference binary (built from its sources with OpenCV 4.6)
+on butterfly.png (the 0.75/1.25 pair covers the S=4 phase-plan scales).  The accuracy gate from BASELINE.md is PSNR within 0.05 dB of
 the reference at x1.5/x2/x3; the pipeline here lands around 60+ dB *against
 the reference output itself*, i.e. the two are visually and metrically
 indistinguishable (residual: fp32 reassociation inside the conv stack vs the
@@ -22,9 +21,8 @@ from tests.conftest import golden_ref
     [(1.5, "1.5"),
      pytest.param(2.0, "2", marks=pytest.mark.slow),
      pytest.param(3.0, "3", marks=pytest.mark.slow),
-     # the round-4f S=4 fused-plan scales: goldens minted from the same
-     # binary build; on TPU these ride the parity-deinterleaved pre-pass
-     # (on-chip CLI evidence <=1 LSB vs both, PARITY.md)
+     # the S=4 phase-plan scales: goldens minted from the same binary
+     # build
      (1.25, "1.25"), (0.75, "0.75")],
 )
 def test_golden_butterfly(butterfly_bgr, scale, tag):

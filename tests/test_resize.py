@@ -158,47 +158,28 @@ def test_vphase_plan_detection_and_fallback():
 
 
 def test_phase_idx_and_s_plan_invariants():
-    # round-4 plan family: index-only plans (coefficient drift past the
-    # f32 boundary at output 1536) and S<=2 strict horizontal plans
-    from srcnn_cpp_tpu.ops.resize import (_hphase_plan, _hphase_plan_s,
-                                          _phase_idx_plan)
+    # the lane-phase horizontal plan (the engine's phase form): admitted
+    # only for S == 1 periods whose integer coefficients repeat bitwise,
+    # with bases equal to the periodic tap indices plus the left pad
+    from srcnn_cpp_tpu.ops.resize import _hphase_plan
     from srcnn_cpp_tpu.ops.resize_tables import cv_cubic_taps_unclamped
 
-    # x3 past the drift boundary: strict declines, index plan holds
+    for ow, iw, P in [(192, 96, 2), (288, 96, 3), (512, 128, 4)]:
+        plan = _hphase_plan(ow, iw)
+        assert plan is not None and plan[0] == P, (ow, iw, plan)
+        P, left, right, bases, coefs = plan
+        xi_un, _ = cv_cubic_taps_unclamped(ow, iw)
+        for p in range(P):
+            assert bases[p] == [int(v) + left for v in xi_un[p]]
+        assert len(coefs) == P and all(len(c) == 4 for c in coefs)
+        assert left >= 1 and right >= 1     # the clamp pads both edges
+    # x3 past the f32 drift boundary (output 1536): coefficients stop
+    # repeating, so the plan declines
     assert _hphase_plan(1620, 540) is None
-    g = _phase_idx_plan(1620, 540)
-    assert g is not None and g[:2] == (3, 1)
-    P, S, lo, hi, bases = g
-    xi_un, _ = cv_cubic_taps_unclamped(1620, 540)
-    # the bases really are the periodic tap indices (+ left pad)
-    for p in range(P):
-        assert bases[p] == [int(v) + lo for v in xi_un[p]]
-
-    # x1.5 at the bench width: the S=1-only detector declines; the
-    # coefficients drift even below 1536 here (the (o+0.5)*2/3 offsets
-    # hit f32 rounding sooner than integer scales), so the strict S=2
-    # detector declines too and the INDEX plan carries it — this is the
-    # exact combination the x1.5 bench runs (S=2 parity + coef planes)
-    assert _hphase_plan(1440, 960) is None
-    assert _hphase_plan_s(1440, 960) is None
-    g15 = _phase_idx_plan(1440, 960, max_s=2)
-    assert g15 is not None and g15[:2] == (3, 2)
-    # small x1.5 widths: the strict S=2 plan does hold bitwise
-    h2 = _hphase_plan_s(288, 192)
-    assert h2 is not None and h2[:2] == (3, 2)
-    # 2:1 downscale: P=1, S=2
-    d2 = _phase_idx_plan(480, 960, max_s=2)
-    assert d2 is not None and d2[:2] == (1, 2)
-    # x1.25: S=4 — beyond an explicit max_s=2 cap, admitted at the
-    # kernel's round-4 cap (pallas_resize._MAX_S == 4)
-    assert _hphase_plan_s(160, 128) is None          # default max_s=2
-    assert _phase_idx_plan(160, 128, max_s=2) is None
-    g125 = _phase_idx_plan(160, 128, max_s=4)
-    assert g125 is not None and g125[:2] == (5, 4)
-    h125 = _hphase_plan_s(160, 128, max_s=4)
-    assert h125 is not None and h125[:2] == (5, 4)
-    # x1.2: S=5 — beyond _MAX_S, declines at the kernel cap too
-    assert _phase_idx_plan(153, 128, max_s=4) is None
+    # source steps other than 1 decline: x1.5 (S=2), 2:1 down (S=2),
+    # x1.25 (S=4), x1.2 (S=5)
+    for ow, iw in [(288, 192), (480, 960), (160, 128), (153, 128)]:
+        assert _hphase_plan(ow, iw) is None, (ow, iw)
 
 
 def test_alternate_hpass_modes_bit_identical(cv46_cases):

@@ -131,12 +131,22 @@ def test_gspmd_handles_indivisible_dims(weights, mesh24):
     assert np.array_equal(mono, auto)
 
 
-def test_pallas_tiled_matches_monolithic(weights):
-    # the fused-kernel-per-device composition (production multi-chip path)
+@pytest.fixture()
+def interpret_kernel(monkeypatch):
+    """Run the fused kernel in interpret mode wherever the tiled paths
+    call it (the CPU cannot compile its Triton lowering)."""
+    from functools import partial
+
+    import srcnn_cpp_tpu.ops.pallas_srcnn as ps
+
+    monkeypatch.setattr(ps, "conv12_q", partial(ps.conv12_q, interpret=True))
+
+
+def test_pallas_tiled_matches_monolithic(weights, interpret_kernel):
+    # the fused-kernel-per-device composition (the GPU's multi-card conv)
     # must agree with the monolithic paths within the usual 1-LSB
     # split-precision budget, including the global top/bottom rows that
-    # take the masked strip recompute
-    import jax
+    # take the feature-row clamp
     from srcnn_cpp_tpu.parallel import make_mesh
     from srcnn_cpp_tpu.parallel.tiling import srcnn_y_tiled
     from srcnn_cpp_tpu.ops.srcnn import srcnn_y
@@ -150,10 +160,9 @@ def test_pallas_tiled_matches_monolithic(weights):
     assert d.max() <= 1, d.max()
 
 
-def test_pallas_tiled_2d_matches_monolithic(weights):
-    # fused kernel on a (row x col) mesh: interior column seams come from
-    # the crop-after-halo composition, true edges from the masked strip
-    # recomputes (tiling._srcnn_tile2d_fused)
+def test_pallas_tiled_2d_matches_monolithic(weights, interpret_kernel):
+    # fused kernel on a (row x col) mesh: halos on both axes, the feature
+    # clamp at the true image edges on both axes
     from srcnn_cpp_tpu.parallel import make_mesh
     from srcnn_cpp_tpu.parallel.tiling import srcnn_y_tiled
     from srcnn_cpp_tpu.ops.srcnn import srcnn_y
@@ -167,107 +176,99 @@ def test_pallas_tiled_2d_matches_monolithic(weights):
         d = np.abs(out.astype(int) - ref.astype(int))
         assert d.max() <= 1, (shape, d.max())
 
-    # tiles below the 8x8 strip minimum are rejected explicitly
+    # tiles as small as the halo (6 rows) stitch too
     mesh = make_mesh(data=2, row=2, col=2)
-    with np.testing.assert_raises(ValueError):
-        srcnn_y_tiled(y[:, :12, :], weights, mesh, kernel="pallas")
+    out = np.asarray(srcnn_y_tiled(y[:, :12, :], weights, mesh,
+                                   kernel="pallas"))
+    d = np.abs(out.astype(int) - np.asarray(srcnn_y(y[:, :12, :], weights))
+               .astype(int))
+    assert d.max() <= 1, d.max()
+
+
+def _engine(x, out_hw):
+    from srcnn_cpp_tpu.ops.color import bgr2ycrcb_u8_planar
+    from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8
+
+    return np.asarray(resize_bicubic_u8(bgr2ycrcb_u8_planar(x), out_hw))
+
+
+def _sharded_pre(x, out_hw, mesh, resize="exact"):
+    """parallel.tiling.pre_upscale_sharded under the mesh's row (and col)
+    sharding, batch over ``data``."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from srcnn_cpp_tpu.parallel.tiling import pre_upscale_sharded
+
+    col = "col" if mesh.shape.get("col", 1) > 1 else None
+    spec = NamedSharding(mesh, P("data", None, "row", col))
+    fn = jax.jit(lambda v: pre_upscale_sharded(v, out_hw, spec, resize))
+    return np.asarray(fn(x))
+
+
+def _assert_close(got, ref, frac=1e-4):
+    # the partitioned program may contract the vertical pass's mul+add
+    # differently from the monolithic one: rare 1-LSB boundary flips
+    d = np.abs(np.asarray(got).astype(int) - np.asarray(ref).astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < frac, (d.max(), (d > 0).mean())
 
 
 def test_pre_upscale_fused_rows_matches_monolith(weights, mesh24):
-    # row-sharded Pallas pre-pass: stitched plane vs the monolithic kernel
-    # and the XLA engine.  Exact on one backend/program pair is the TPU
-    # gate (test_tpu.py); CPU allows the documented FMA boundary flips.
-    from srcnn_cpp_tpu.ops.color import bgr2ycrcb_u8_planar
-    from srcnn_cpp_tpu.ops.pallas_resize import pre_upscale_fused
-    from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8
-    from srcnn_cpp_tpu.parallel import pre_upscale_fused_rows
-
+    # row-sharded (GSPMD) pre-pass: stitched plane vs the monolithic engine
     rng = np.random.default_rng(7)
     for s, b in [(2, 2), (3, 4)]:
         x = rng.integers(0, 256, (b, 3, 64, 160), dtype=np.uint8)
         out_hw = (64 * s, 160 * s)
-        got = pre_upscale_fused_rows(x, out_hw, mesh24)
-        assert got is not None, (s, b)
-        for ref in (pre_upscale_fused(x, out_hw),
-                    resize_bicubic_u8(bgr2ycrcb_u8_planar(x), out_hw)):
-            d = np.abs(np.asarray(got).astype(int)
-                       - np.asarray(ref).astype(int))
-            assert d.max() <= 1 and (d > 0).mean() < 1e-4, (s, b, d.max())
+        _assert_close(_sharded_pre(x, out_hw, mesh24), _engine(x, out_hw))
 
 
 def test_pre_upscale_fused_rows_declines(weights, mesh24):
-    from srcnn_cpp_tpu.parallel import make_mesh, pre_upscale_fused_rows
+    # geometries the old per-device kernel declined all partition: x1.2
+    # (no phase plan), rows not divisible by the row axis, column blocks
+    # narrower than 128, widths not divisible by the col axis
+    from srcnn_cpp_tpu.parallel import make_mesh
 
-    x = np.zeros((2, 3, 64, 160), dtype=np.uint8)
-    # x1.2: source step 5 > _MAX_S on both axes — no plan at all
-    assert pre_upscale_fused_rows(x, (76, 192), mesh24) is None
-    # rows not divisible by the mesh row axis
-    x2 = np.zeros((2, 3, 63, 160), dtype=np.uint8)
-    assert pre_upscale_fused_rows(x2, (126, 320), mesh24) is None
-    # column-sharded: local blocks under the 128-lane kernel minimum
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 256, (2, 3, 64, 160), dtype=np.uint8)
+    _assert_close(_sharded_pre(x, (76, 192), mesh24), _engine(x, (76, 192)))
+    x2 = rng.integers(0, 256, (2, 3, 63, 160), dtype=np.uint8)
+    _assert_close(_sharded_pre(x2, (126, 320), mesh24),
+                  _engine(x2, (126, 320)))
     mesh2d = make_mesh(data=1, row=2, col=4)
-    assert pre_upscale_fused_rows(x, (128, 320), mesh2d) is None
-    # column-sharded: width not divisible by the col axis
-    x3 = np.zeros((2, 3, 64, 634), dtype=np.uint8)
-    assert pre_upscale_fused_rows(x3, (128, 1268), mesh2d) is None
+    _assert_close(_sharded_pre(x, (128, 320), mesh2d), _engine(x, (128, 320)))
+    x3 = rng.integers(0, 256, (2, 3, 64, 634), dtype=np.uint8)
+    _assert_close(_sharded_pre(x3, (128, 1268), mesh2d),
+                  _engine(x3, (128, 1268)))
 
 
 def test_pre_upscale_fused_rows_generalized_plan(weights, mesh24):
     # x3 past OpenCV's f32 coefficient-drift boundary (output rows >=
-    # 1536): the per-output coefficient planes shard over ``row`` and the
-    # stitched plane still matches the engine (round-4 extension)
-    from srcnn_cpp_tpu.ops.color import bgr2ycrcb_u8_planar
-    from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8
-    from srcnn_cpp_tpu.parallel import pre_upscale_fused_rows
-
+    # 1536): the vertical pass takes its gather form, sharded over ``row``
     rng = np.random.default_rng(17)
     x = rng.integers(0, 256, (2, 3, 540, 96), dtype=np.uint8)
-    got = pre_upscale_fused_rows(x, (1620, 288), mesh24)
-    assert got is not None
-    ref = resize_bicubic_u8(bgr2ycrcb_u8_planar(x), (1620, 288))
-    d = np.abs(np.asarray(got).astype(int) - np.asarray(ref).astype(int))
-    assert d.max() <= 1 and (d > 0).mean() < 1e-4, (d.max(), (d > 0).mean())
+    _assert_close(_sharded_pre(x, (1620, 288), mesh24),
+                  _engine(x, (1620, 288)))
 
 
 def test_pre_upscale_fused_rows_parity_plans(weights, mesh24):
-    # S>=2 parity plans sharded (round 5): the deinterleave is local, so
-    # each device's plan matches the global one whenever the exact row
-    # ratio holds — x1.5 (pv=3, sv=2), x0.75 (pv=3, sv=4) and the 2:1
-    # downscale (pv=1, sv=2) all stitch to the monolithic engine
-    from srcnn_cpp_tpu.ops.color import bgr2ycrcb_u8_planar
-    from srcnn_cpp_tpu.ops.pallas_resize import pre_upscale_fused
-    from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8
-    from srcnn_cpp_tpu.parallel import pre_upscale_fused_rows
-
+    # S>=2 parity plans sharded: x1.5 (pv=3, sv=2), x0.75 (pv=3, sv=4),
+    # the 2:1 downscale (pv=1, sv=2) and x1.25 (S=4)
     rng = np.random.default_rng(23)
     for scale, ih, iw in [(1.5, 64, 192), (0.75, 96, 256), (0.5, 128, 512),
-                          (1.25, 96, 256)]:  # S=4: 16 quadrants sharded
+                          (1.25, 96, 256)]:
         x = rng.integers(0, 256, (2, 3, ih, iw), dtype=np.uint8)
         out_hw = (int(ih * scale), int(iw * scale))
-        got = pre_upscale_fused_rows(x, out_hw, mesh24)
-        assert got is not None, scale
-        for ref in (pre_upscale_fused(x, out_hw),
-                    resize_bicubic_u8(bgr2ycrcb_u8_planar(x), out_hw)):
-            d = np.abs(np.asarray(got).astype(int)
-                       - np.asarray(ref).astype(int))
-            assert d.max() <= 1 and (d > 0).mean() < 1e-4, (scale, d.max())
+        _assert_close(_sharded_pre(x, out_hw, mesh24), _engine(x, out_hw))
 
 
 def test_pre_upscale_fused_rows_fuzz(weights, mesh24):
     # randomized RATIONAL-scale geometries, anisotropic (independent p/q
-    # per axis), through the sharded path: exercises plan admission, the
-    # S-generalized halo widths and the per-device phase/ratio checks
-    # across the space rather than the curated scales.  A 40-geometry
-    # sweep of this generator (2026-08-20) passed with worst LSB 1.
+    # per axis), through the sharded path
     import random
-
-    from srcnn_cpp_tpu.ops.color import bgr2ycrcb_u8_planar
-    from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8
-    from srcnn_cpp_tpu.parallel import pre_upscale_fused_rows
 
     random.seed(77)
     rng = np.random.default_rng(1)
-    fused = 0
+    tried = 0
     for trial in range(24):
         qv, pv = random.randrange(1, 5), random.randrange(1, 13)
         qh, ph = random.randrange(1, 5), random.randrange(1, 13)
@@ -277,88 +278,73 @@ def test_pre_upscale_fused_rows_fuzz(weights, mesh24):
         if not (32 <= oh <= 600 and oh % 4 == 0 and 128 <= ow <= 900):
             continue
         x = rng.integers(0, 256, (2, 3, ih, iw), dtype=np.uint8)
-        out = pre_upscale_fused_rows(x, (oh, ow), mesh24)
-        if out is None:
-            continue
-        fused += 1
-        ref = resize_bicubic_u8(bgr2ycrcb_u8_planar(x), (oh, ow))
-        d = np.abs(np.asarray(out).astype(int) - np.asarray(ref).astype(int))
-        assert d.max() <= 1 and (d > 0).mean() < 1e-3, \
-            (ih, iw, oh, ow, int(d.max()))
-        if fused >= 8:       # bound the suite cost; the generator is the gate
+        tried += 1
+        _assert_close(_sharded_pre(x, (oh, ow), mesh24), _engine(x, (oh, ow)),
+                      frac=1e-3)
+        if tried >= 8:       # bound the suite cost; the generator is the gate
             break
-    assert fused >= 6, f"fuzz exercised only {fused} sharded geometries"
+    assert tried >= 6, f"fuzz exercised only {tried} sharded geometries"
 
 
 def test_pre_upscale_fused_2d_parity_plan(weights):
-    # x1.5 on a (row, col) mesh: parity plans with BOTH row and lane halos
-    from srcnn_cpp_tpu.ops.color import bgr2ycrcb_u8_planar
-    from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8
-    from srcnn_cpp_tpu.parallel import make_mesh, pre_upscale_fused_rows
+    # x1.5 on a (row, col) mesh: GSPMD comms on both axes
+    from srcnn_cpp_tpu.parallel import make_mesh
 
     mesh2d = make_mesh(data=1, row=2, col=4)
     rng = np.random.default_rng(29)
     x = rng.integers(0, 256, (2, 3, 64, 1024), dtype=np.uint8)
-    got = pre_upscale_fused_rows(x, (96, 1536), mesh2d)
-    assert got is not None
-    ref = resize_bicubic_u8(bgr2ycrcb_u8_planar(x), (96, 1536))
-    d = np.abs(np.asarray(got).astype(int) - np.asarray(ref).astype(int))
-    assert d.max() <= 1 and (d > 0).mean() < 1e-4, d.max()
+    _assert_close(_sharded_pre(x, (96, 1536), mesh2d),
+                  _engine(x, (96, 1536)))
 
 
 def test_pre_upscale_fused_2d_matches_monolith(weights):
-    # 2-D (row, col) mesh: per-device kernel with BOTH row and lane
-    # ppermute halos stitches to the monolithic kernel's plane (round-4
-    # column-halo support; formerly an undocumented rows-only waiver)
+    # 2-D (row, col) mesh at integer scales, both resize engines
     from srcnn_cpp_tpu.ops.color import bgr2ycrcb_u8_planar
-    from srcnn_cpp_tpu.ops.pallas_resize import pre_upscale_fused
-    from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8
-    from srcnn_cpp_tpu.parallel import make_mesh, pre_upscale_fused_rows
+    from srcnn_cpp_tpu.ops.resize import resize_bicubic_u8_fast
+    from srcnn_cpp_tpu.parallel import make_mesh
 
     mesh2d = make_mesh(data=1, row=2, col=4)
     rng = np.random.default_rng(8)
     for s, iw in [(2, 256), (3, 192)]:
         x = rng.integers(0, 256, (2, 3, 64, iw), dtype=np.uint8)
         out_hw = (64 * s, iw * s)
-        got = pre_upscale_fused_rows(x, out_hw, mesh2d)
-        assert got is not None, (s, iw)
-        for ref in (pre_upscale_fused(x, out_hw),
-                    resize_bicubic_u8(bgr2ycrcb_u8_planar(x), out_hw)):
-            d = np.abs(np.asarray(got).astype(int)
-                       - np.asarray(ref).astype(int))
-            assert d.max() <= 1 and (d > 0).mean() < 1e-4, (s, iw, d.max())
+        _assert_close(_sharded_pre(x, out_hw, mesh2d), _engine(x, out_hw))
+        fast = np.asarray(resize_bicubic_u8_fast(bgr2ycrcb_u8_planar(x),
+                                                 out_hw))
+        _assert_close(_sharded_pre(x, out_hw, mesh2d, "fast"), fast)
 
 
 def test_merge_fused_rows_bit_equal(weights, mesh24):
-    # pointwise post-pass: per-device kernel == monolithic kernel exactly
-    from srcnn_cpp_tpu.ops.pallas_merge import merge_ycrcb_to_bgr_fused
-    from srcnn_cpp_tpu.parallel.tiling import merge_ycrcb_to_bgr_fused_rows
+    # pointwise post-pass: sharded == monolithic exactly, on row and
+    # (row, col) meshes and on rows the mesh does not divide
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from srcnn_cpp_tpu.ops.color import ycrcb2bgr_u8_planar
+    from srcnn_cpp_tpu.parallel import make_mesh
+    from srcnn_cpp_tpu.parallel.tiling import merge_sharded
+
+    def mono(y, up):
+        import jax.numpy as jnp
+
+        return np.asarray(ycrcb2bgr_u8_planar(jnp.stack(
+            [jnp.asarray(y), jnp.asarray(up[:, 1]), jnp.asarray(up[:, 2])],
+            axis=1)))
+
+    def sharded(y, up, mesh):
+        col = "col" if mesh.shape.get("col", 1) > 1 else None
+        spec = NamedSharding(mesh, P("data", None, "row", col))
+        return np.asarray(jax.jit(lambda a, b: merge_sharded(a, b, spec))(
+            y, up))
 
     rng = np.random.default_rng(11)
     y_sr = rng.integers(0, 256, (2, 64, 192), dtype=np.uint8)
     up = rng.integers(0, 256, (2, 3, 64, 192), dtype=np.uint8)
-    got = merge_ycrcb_to_bgr_fused_rows(y_sr, up, mesh24)
-    assert got is not None
-    # (row, col) mesh: pointwise, so 2-D tiles are trivially exact too
-    from srcnn_cpp_tpu.parallel import make_mesh
-
+    assert np.array_equal(sharded(y_sr, up, mesh24), mono(y_sr, up))
     mesh2d = make_mesh(data=2, row=2, col=2)
     y2 = rng.integers(0, 256, (2, 64, 256), dtype=np.uint8)
     up2 = rng.integers(0, 256, (2, 3, 64, 256), dtype=np.uint8)
-    got2d = merge_ycrcb_to_bgr_fused_rows(y2, up2, mesh2d)
-    assert got2d is not None
-    ref2d = merge_ycrcb_to_bgr_fused(y2, up2)
-    assert np.array_equal(np.asarray(got2d), np.asarray(ref2d))
-    ref = merge_ycrcb_to_bgr_fused(y_sr, up)
-    assert np.array_equal(np.asarray(got), np.asarray(ref))
-    # ragged local rows (60/4 = 15) ride the kernel's masked blocks
-    got60 = merge_ycrcb_to_bgr_fused_rows(y_sr[:, :60], up[:, :, :60], mesh24)
-    assert got60 is not None
-    assert np.array_equal(
-        np.asarray(got60),
-        np.asarray(merge_ycrcb_to_bgr_fused(y_sr[:, :60], up[:, :, :60])))
-    # declines: rows not divisible by the mesh / tiny local blocks
-    assert merge_ycrcb_to_bgr_fused_rows(
-        y_sr[:, :62], up[:, :, :62], mesh24) is None
-    assert merge_ycrcb_to_bgr_fused_rows(
-        y_sr[:, :16], up[:, :, :16], mesh24) is None
+    assert np.array_equal(sharded(y2, up2, mesh2d), mono(y2, up2))
+    for rows in (60, 62, 16):
+        assert np.array_equal(sharded(y_sr[:, :rows], up[:, :, :rows], mesh24),
+                              mono(y_sr[:, :rows], up[:, :, :rows])), rows
